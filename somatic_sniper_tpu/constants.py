@@ -3,7 +3,7 @@
 These mirror the tables and flag constants of the reference implementation
 (see /root/reference: vendor samtools-0.1.6 ``bam.h``/``bam_import.c`` and
 ``src/lib/sniper/somatic_sniper.c``) but are re-derived here as numpy data for
-a columnar, batched TPU pipeline.
+a columnar, batched accelerator pipeline.
 """
 
 from __future__ import annotations

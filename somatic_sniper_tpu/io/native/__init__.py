@@ -1,13 +1,17 @@
 """ctypes loader for the native IO/pileup library.
 
-Builds ``libsniper_native.so`` from sniper_native.cpp on first use (g++
--O3, links zlib).  Falls back gracefully: callers check ``available()``
+Builds ``libsniper_native-<tag>.so`` from sniper_native.cpp on first use
+(g++ -O3, links zlib).  The tag hashes the source, the compiler flags
+and the host CPU's feature flags (the build uses ``-march=native``), so
+a library built from other source, with other flags or for another CPU
+is never loaded.  Falls back gracefully: callers check ``available()``
 and use the pure-Python path when the toolchain is missing.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -17,10 +21,30 @@ import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 _SRC = _DIR / "sniper_native.cpp"
-_LIB = _DIR / "libsniper_native.so"
+_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+          "-pthread"]
 _lock = threading.Lock()
 _lib = None
 _tried = False
+
+
+def _cpu_flags() -> bytes:
+    try:
+        with open("/proc/cpuinfo", "rb") as fh:
+            for line in fh:
+                if line.startswith(b"flags"):
+                    return line
+    except OSError:
+        pass
+    return b""
+
+
+def lib_path() -> Path:
+    """The library built from the current source, flags and CPU."""
+    h = hashlib.sha256(_SRC.read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(_cpu_flags())
+    return _DIR / f"libsniper_native-{h.hexdigest()[:16]}.so"
 
 
 class NativeBamHeaderStruct(ctypes.Structure):
@@ -59,17 +83,22 @@ class NativePileupStruct(ctypes.Structure):
     ]
 
 
-def _build() -> bool:
+def _build(out: Path) -> bool:
+    # build to a private name, then rename: concurrent first uses (test
+    # workers, --jobs workers) never load a half-written library
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     try:
         subprocess.run(
-            ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-             "-pthread", "-o", str(_LIB), str(_SRC), "-lz"],
+            ["g++", *_FLAGS, "-o", str(tmp), str(_SRC), "-lz"],
             check=True, capture_output=True, timeout=300,
         )
+        os.replace(tmp, out)
         return True
     except (subprocess.CalledProcessError, FileNotFoundError,
             subprocess.TimeoutExpired):
         return False
+    finally:
+        tmp.unlink(missing_ok=True)
 
 
 def get_lib():
@@ -86,15 +115,11 @@ def get_lib():
             return _lib
         _tried = True
         override = os.environ.get("SNIPER_NATIVE_LIB")
-        lib_path = Path(override) if override else _LIB
-        if not override and (
-            not _LIB.exists()
-            or _LIB.stat().st_mtime < _SRC.stat().st_mtime
-        ):
-            if not _build():
-                return None
+        path = Path(override) if override else lib_path()
+        if not override and not path.exists() and not _build(path):
+            return None
         try:
-            lib = ctypes.CDLL(str(lib_path))
+            lib = ctypes.CDLL(str(path))
         except OSError:
             return None
         # (the two-phase bam_load/pileup_build C entries still exist for

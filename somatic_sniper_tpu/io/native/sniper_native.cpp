@@ -1,7 +1,7 @@
 // Native host-side IO + pileup for somatic_sniper_tpu.
 //
 // Replaces the vendored samtools C layer of the reference with a
-// TPU-era equivalent: block-parallel BGZF inflate, whole-buffer BAM
+// batched equivalent: block-parallel BGZF inflate, whole-buffer BAM
 // record decode into columnar arrays, and vectorized pileup
 // columnarization producing the packed u32 slot entries the device
 // kernel consumes (see somatic_sniper_tpu/models/glfgen.py).

@@ -1,6 +1,6 @@
 """Genotype set algebra on 4-bit allele sets (A=1, C=2, G=4, T=8).
 
-TPU-native counterpart of the reference's allele_util module
+Array counterpart of the reference's allele_util module
 (reference src/lib/sniper/allele_util.h:22-37, allele_util.c:6-29):
 every predicate is an elementwise array expression, usable on numpy
 and jax arrays alike (and inside jit), instead of per-site C macros.

@@ -92,11 +92,10 @@ def make_qadd(qadd_table=None):
 
     because qAddTable[512+d] = S(|d|) + min(d, 0) where S steps through
     -3/-2/-1/0 at |d| = 2, 4, 10 (phred-space logsumexp correction), and
-    the zero entries at indices >= 1000 coincide with S = 0.  This removes
-    every per-element table gather from the score pipeline — a large win
-    on TPU, where vector gathers serialize onto the scalar core.  The clip
-    mirrors the bounds-guard of the table variant (the reference would
-    read out of bounds there; unreachable for well-formed inputs).
+    the zero entries at indices >= 1000 coincide with S = 0.  This keeps
+    the score pipeline elementwise, so XLA fuses it into a few kernels.
+    The clip mirrors the bounds-guard of the table variant (the reference
+    would read out of bounds there; unreachable for well-formed inputs).
     """
 
     def qadd(x, y):
@@ -115,8 +114,6 @@ def posteriors_batch(lk, ref16, solo_prior, qadd):
 
     lk: [B,10] i32, ref16: [B] i32.  Returns lkResult [B,10] i32.
     """
-    # one-hot matmul instead of a row gather (TPU-friendly; values are
-    # small ints, exact in f32)
     prior = _row_select(solo_prior, ref16)  # [B,10]
     x = lk + prior
     qsum = jnp.full(x.shape[:1], 255, I32)
@@ -127,12 +124,9 @@ def posteriors_batch(lk, ref16, solo_prior, qadd):
 
 
 def _row_select(table, idx):
-    """table[idx] for a small table via one-hot matmul (int-exact in f32)."""
-    t = jnp.asarray(table)
-    oh = jax.nn.one_hot(idx, t.shape[0], dtype=jnp.float32)
-    flat = t.reshape(t.shape[0], -1).astype(jnp.float32)
-    out = oh @ flat
-    return out.reshape((idx.shape[0],) + t.shape[1:]).astype(t.dtype)
+    """``table[idx]``: one row of a small per-reference-base table per
+    column (a gather; [B] indices -> [B, ...] rows)."""
+    return jnp.asarray(table)[idx]
 
 
 def _select_scalar(values, idx):
@@ -176,7 +170,7 @@ def somatic_score_batch(
         tj = best_idx % 10
 
         # marginal: sequential 100-step qAdd fold, unrolled (each step is
-        # a handful of VPU ops thanks to the arithmetic qAdd)
+        # a handful of elementwise ops thanks to the arithmetic qAdd)
         marginal = jnp.full((B,), 255, I32)
         for t in range(100):
             marginal = qadd(marginal, flat[:, t])

@@ -18,8 +18,9 @@ deterministic (agreed from one initial length all-gather), so every
 process executes the same collective sequence.
 
 Built on jax.experimental.multihost_utils.process_allgather, i.e. an
-XLA all_gather over ICI/DCN; host gRPC is used only for coordination,
-exactly the reference-free green-field design SURVEY §2.3 calls for.
+XLA all_gather, which on GPUs runs as NCCL over NVLink between the cards
+of a host; host gRPC is used only for coordination, exactly the
+reference-free green-field design SURVEY §2.3 calls for.
 """
 
 from __future__ import annotations
@@ -51,23 +52,10 @@ def merge_barrier(timeout_ms: int | None = None) -> None:
             )
         except ValueError:
             timeout_ms = 600000
-    # jax._src is private API (no public timeout-capable barrier exists
-    # as of jax 0.9): if an upgrade renames it, proceed WITHOUT the
-    # barrier rather than letting the except-Exception caller in
-    # cli/main.py misread every healthy merge as a dead worker (exit 3)
-    try:
-        from jax._src.distributed import global_state
-        client = getattr(global_state, "client", None)
-    except Exception:
-        import sys
+    # private API: JAX 0.9 has no public barrier that takes a timeout
+    from jax._src.distributed import global_state
 
-        print(
-            "somatic_sniper_tpu: distributed barrier API unavailable in "
-            "this jax version; merging without the pre-merge timeout "
-            "(a dead peer would hang the collective instead of failing "
-            "fast)", file=sys.stderr, flush=True,
-        )
-        return
+    client = global_state.client
     if client is None:  # single-process / uninitialized: nothing to sync
         return
     client.wait_at_barrier("sniper_merge", timeout_ms)

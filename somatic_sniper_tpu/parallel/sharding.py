@@ -66,20 +66,16 @@ def sharded_call_batch(
     q_r_int).  The batch size must be divisible by the mesh size (pad with
     empty columns; they emit nothing).
     """
-    s1 = NamedSharding(mesh, P("data"))
     repl = NamedSharding(mesh, P())
     tumor = shard_column_batch(tumor, mesh)
     normal = shard_column_batch(normal, mesh)
     fk, coef, lhet, solo, joint, qadd, q_r_int = tables_args
     put = lambda x: jax.device_put(jnp.asarray(x), repl)
-    # passing the mesh makes the Pallas fast-path accumulate run under
-    # shard_map (one kernel per device slab); the rest partitions via
-    # GSPMD.  glf_backend stays selectable through kwargs.
+    # the batch-sharded inputs partition the whole step under GSPMD
     return call_batch(
         tumor, normal,
         put(fk), put(coef), put(lhet), put(solo), put(joint), put(qadd),
-        q_r_int, precision=precision, use_joint=use_joint,
-        mesh=mesh, **kwargs,
+        q_r_int, precision=precision, use_joint=use_joint, **kwargs,
     )
 
 

@@ -4,7 +4,7 @@ Inverts the reference's pull-based linked-list pileup
 (reference sniper_pileup.c:57-224): instead of advancing one reference
 position at a time and re-walking CIGARs, every (read, CIGAR-run) pair is
 expanded to per-column entries in one numpy pass, grouped by genomic
-position, and padded into ``[B, D]`` tensors for the batched TPU kernel.
+position, and padded into ``[B, D]`` tensors for the batched device kernel.
 
 Replicated semantics:
 

@@ -2,7 +2,7 @@
 
 The reference has no tracing at all — four startup ``fprintf(stderr)``
 lines (reference main.c:116-130) are its entire observability story.
-This module gives the TPU framework the per-stage wall-clock and volume
+This module gives the caller the per-stage wall-clock and volume
 counters SURVEY.md §5 calls for: decode, plan, pad/upload, device
 compute, emit — cheap enough to stay on in production (one perf_counter
 pair per stage call).

@@ -201,15 +201,23 @@ def test_merge_barrier_single_process_noop():
     merge_barrier()  # no distributed client: returns without error
 
 
-def test_merge_barrier_private_api_unavailable(monkeypatch, capsys):
-    """A jax upgrade that drops the private barrier API must degrade to
-    a warning, not fail healthy merges."""
+def test_merge_barrier_waits_on_client(monkeypatch):
+    """With a distributed client the barrier waits on it, named and
+    bounded by SNIPER_MERGE_TIMEOUT_MS."""
+    from jax._src.distributed import global_state
+
     from somatic_sniper_tpu.parallel import collective
 
-    monkeypatch.setitem(sys.modules, "jax._src.distributed",
-                        types.ModuleType("fake"))
+    calls = []
+
+    class _Client:
+        def wait_at_barrier(self, name, timeout_ms):
+            calls.append((name, timeout_ms))
+
+    monkeypatch.setattr(global_state, "client", _Client())
+    monkeypatch.setenv("SNIPER_MERGE_TIMEOUT_MS", "1234")
     collective.merge_barrier()
-    assert "barrier API unavailable" in capsys.readouterr().err
+    assert calls == [("sniper_merge", 1234)]
 
 
 def test_chunk_bytes_env_parsing(monkeypatch):

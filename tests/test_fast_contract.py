@@ -16,9 +16,9 @@ Field policy
            somatic score + consensus/variant qualities within ±1.
   bed:     somatic score within ±1; everything else exact.
 
-The one known tolerated instance on the reference's integration pair
-(GQ 44 vs 45 at 17:260, an f32 boundary in the Pallas path) is pinned:
-any OTHER tolerated diff on that pair fails the test.
+The one tolerated instance ever seen on the reference's integration
+pair (GQ 44 vs 45 at 17:260, an f32 boundary of an earlier fused
+kernel) is pinned: any OTHER tolerated diff on that pair fails the test.
 """
 
 import re

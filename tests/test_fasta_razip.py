@@ -2,7 +2,7 @@
 
 The reference consumes razip-compressed FASTA through vendored razf.c
 (faidx.c:216) — a gzip-conformant stream with a trailing random-access
-index.  The TPU stack decompresses the members and serves the identical
+index.  This implementation decompresses the members and serves the identical
 uncompressed text, so `.fai` offsets and all downstream behavior are
 unchanged; trailing index bytes after the gzip stream are ignored.
 """

@@ -1,29 +1,15 @@
-"""Kernel microbench + FLOP model sanity (utils.mfu).
+"""Kernel microbench mechanics (utils.mfu).
 
-The real utilization numbers come from the TPU (bench.py); these tests
-pin the harness mechanics on CPU: the chained fori_loop must execute
-with a runtime trip count (one executable), the data-dependent carry
-must keep per-iteration inputs distinct, and the FLOP model must scale
-as designed.
+Device rates come only from a GPU run; these tests pin the harness
+mechanics on CPU: the chained fori_loop must execute with a runtime trip
+count (one executable) and report a positive rate for the shape asked.
 """
 
 from somatic_sniper_tpu.utils import mfu
 
 
-def test_flop_model_scales_with_depth():
-    f16 = mfu.flops_per_pair_column(16)
-    f32 = mfu.flops_per_pair_column(32)
-    f64 = mfu.flops_per_pair_column(64)
-    assert f16 < f32 < f64
-    # dominated by the NK^2 one-hot contraction: ~4x per depth doubling
-    assert 3.0 < f64 / f32 < 4.5
-    assert mfu.hbm_bytes_per_pair_column(64) > 0
-
-
 def test_bench_kernel_runs_on_cpu():
     r = mfu.bench_kernel(B=128, D=16, iters=4)
     assert r.cols_per_sec > 0
-    assert r.flops_per_col == mfu.flops_per_pair_column(16)
-    assert r.est_mfu >= 0
+    assert r.measured_slab_s > 0
     assert r.B == 128 and r.D == 16
-    assert isinstance(r.verdict, str) and r.verdict

@@ -40,3 +40,13 @@ def test_cli_stats_flag(tmp_path):
     )
     assert "[sniper-tpu stats]" in r.stderr
     assert "records_emitted" in r.stderr
+
+
+def test_trace_busy_union_and_missing_trace(tmp_path):
+    """The trace reduction's busy time is the union of overlapping
+    kernel intervals; a directory with no trace is an error."""
+    from tests.tools.trace_device_time import _union_s, main
+
+    assert _union_s([(30, 40), (0, 10), (5, 20), (12, 15)]) == 30e-9
+    assert _union_s([]) == 0.0
+    assert main([str(tmp_path)]) == 1

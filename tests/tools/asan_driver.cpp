@@ -2,8 +2,8 @@
 //
 // The reference wraps every test invocation in valgrind
 // (build-common/python/valgrindwrapper.py:25-48) so each run is also a
-// leak/memory-safety check.  This driver is the analog for the TPU
-// framework's C++ layer: tests/test_native.py compiles it together with
+// leak/memory-safety check.  This driver is the analog for this
+// implementation's C++ layer: tests/test_native.py compiles it with
 // sniper_native.cpp under -fsanitize=address,undefined and runs it over
 // the golden BAM pair; any leak, overflow, or UB fails the exit code.
 //

@@ -112,8 +112,9 @@ def main() -> None:
         size_mb = int(argv[i + 1])
         del argv[i : i + 2]
     args = [a for a in argv if not a.startswith("--")]
-    d = Path(args[0]) if args else Path(
-        f"/tmp/sniper_tpu_bench/pair_{size_mb}mb"
+    d = Path(args[0]) if args else (
+        Path(__file__).resolve().parents[2] / ".bench_data"
+        / f"pair_{size_mb}mb"
     )
     ensure_pair(d, size_mb * 1_000_000 // 2)
     genome = sum(
